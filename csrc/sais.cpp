@@ -1,10 +1,10 @@
 // Suffix-array construction by induced sorting (SA-IS), int32 text,
 // arbitrary integer alphabet.
 //
-// This is the native build core of the index pipeline — the TPU-native
+// This is the native build core of the index pipeline — the
 // replacement for the reference's ropebwt2 / SGA `sga index` suffix-sorting
 // stack (SURVEY.md §2.1-§2.2): build-time only, so it runs on the host while
-// the serve path lives on-chip. Implemented from the SA-IS algorithm of
+// the serve path lives on the device. Implemented from the SA-IS algorithm of
 // Nong, Zhang & Chan (DCC'09) — linear time, integer alphabet, recursion on
 // the reduced LMS-substring problem.
 //

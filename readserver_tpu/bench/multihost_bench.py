@@ -49,7 +49,7 @@ def main(argv=None) -> int:
                          "its 1-process control runs the SAME (dp, shard) "
                          "program as the N-process run — otherwise the "
                          "efficiency ratio conflates process count with "
-                         "decomposition shape (VERDICT r4 weak #1)")
+                         "decomposition shape")
     ap.add_argument("--serve-loop", action="store_true",
                     help="tick forever, one heartbeat line per step")
     ap.add_argument("--owner-route", action="store_true",

@@ -4,7 +4,7 @@ Runs the full sharded query program at every (dp, shard) factorization of
 the available devices, asserting bit-exact parity across widths.  On the
 CPU host-platform simulation this validates program correctness and
 collective structure; wall-clock scaling efficiency must be measured on a
-real pod slice (ROADMAP.md "Multi-host serving rig").
+cards (ROADMAP.md S6).
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python -m readserver_tpu.bench.scaling_sim

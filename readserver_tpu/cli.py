@@ -510,4 +510,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from readserver_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

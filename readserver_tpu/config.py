@@ -20,15 +20,13 @@ class IndexConfig:
     The rank structure is a fused-block layout: for each symbol ``c`` and each
     block of ``block_size`` BWT positions, one row of ``row_words`` uint32
     words holds ``[occ_checkpoint, bitplane words...]``. One gather therefore
-    fetches both the checkpoint and the in-block bits — the TPU-native
+    fetches both the checkpoint and the in-block bits — the batched
     replacement for SGA's LargeMark/SmallMark two-level sampling
     (SURVEY.md §2.1 "Occ/rank structure").
 
-    Defaults (64-symbol blocks, 16-byte rows) were measured on v5e: XLA's
-    row gather is issue-rate-bound per row (flat in table size), and
-    16-byte rows gather ~13% faster than 20-byte (75 vs 66 Mrows/s at
-    B=512k) — the fourth word is padding (ckpt + 2 plane words), worth
-    the 1.25 B/sym table for the rate.
+    Defaults: 64-symbol blocks and 16-byte rows (checkpoint + 2 plane
+    words + 1 word of padding), so a row is one aligned power-of-two load;
+    the five symbol planes cost 1.25 B/sym together.
     """
 
     block_size: int = 64           # BWT symbols per rank block (power of 2)

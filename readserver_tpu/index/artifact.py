@@ -86,7 +86,7 @@ def load_artifact(path: str | Path, mmap: bool = True) -> PackedIndex:
     # "files" maps array name → non-default filename: upgrade-in-place
     # rewrites (e.g. a sample_rate change) write versioned files and flip
     # this mapping atomically with the manifest, so a crash mid-rewrite
-    # can never mix old- and new-rate arrays (ADVICE r4)
+    # can never mix old- and new-rate arrays
     files = manifest.get("files", {})
     arrays = {
         name: np.load(path / files.get(name, f"{name}.npy"), mmap_mode=mode)

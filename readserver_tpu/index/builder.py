@@ -1,6 +1,6 @@
 """Host index builder: reads → suffix array → BWT → packed device arrays.
 
-This is the TPU-native replacement for the reference's build pipeline
+This replaces the reference's build pipeline
 (``ropebwt2`` per-sample BWT + ``bwt-merge`` + RocksDB metadata load,
 SURVEY.md §3.4): a single pass that produces a bit-packed, rank-indexed
 artifact plus dense payload arrays (the RocksDB tier becomes
@@ -71,7 +71,7 @@ class PackedIndex:
     # k-step search tiers (optional): rank blocks over the 16 base-pair /
     # 64 base-triple planes + k-mer bucket starts — one rank advances the
     # backward search k characters, dividing the dependent-gather chain
-    # (the hot path's latency bound on v5e) by k.  The triple tier costs
+    # (the hot path's latency bound) by k.  The triple tier costs
     # 16 B/sym of HBM, so it is auto-enabled only for smaller indexes.
     rank2_blocks: np.ndarray | None = None  # uint32 [16, NB+1, row_words]
     C2: np.ndarray | None = None            # int64 [16]

@@ -93,7 +93,7 @@ def shard_build_params(
     a layout-identical shard.
 
     The cohort manifest itself does not carry the full build config in
-    older artifacts (ADVICE r3, medium): appending with defaults to a
+    older artifacts: appending with defaults to a
     cohort built with non-default ``sample_rate``/``block_size`` silently
     drifts shard layouts, and the doc-sharded mesh path then applies
     shard 0's parameters to all shards.  Shard 0's artifact manifest is
@@ -322,7 +322,7 @@ def append_to_cohort(
         )
     config = built_cfg
     # inherit the cohort's actual build-time tier kwargs so appended
-    # shards can never drift from the existing ones (ADVICE r3) — also
+    # shards can never drift from the existing ones — also
     # when an (identical) config was passed explicitly
     for k, v in built_kw.items():
         build_kw.setdefault(k, v)
@@ -448,7 +448,7 @@ def compact_cohort(
         if hi - lo == 1:
             # singleton group: keep the existing shard dir in place — a
             # byte-identical re-save under a new name would be a full
-            # artifact copy for no change (ADVICE r3)
+            # artifact copy for no change
             new_dirs.append(old_dirs[lo])
             shard_reads.append(parts[lo].num_reads)
             continue
@@ -475,8 +475,7 @@ def compact_cohort(
             shutil.rmtree(out / d, ignore_errors=True)
     # rewrite the streaming-build progress log to match the new shard list
     # (stale entries pointing at removed dirs would make a later resumed
-    # build_cohort_stream restart from read 0 and clobber the cohort —
-    # ADVICE r3)
+    # build_cohort_stream restart from read 0 and clobber the cohort)
     log_path = out / PROGRESS_LOG
     if log_path.exists():
         consumed = 0

@@ -140,7 +140,7 @@ def upgrade_artifact(
         new["C3"] = packing.kgram_starts(rank_blocks, C, config, 3)
         del triple
 
-    # Crash safety (ADVICE r4, medium): additive arrays are unreferenced
+    # Crash safety: additive arrays are unreferenced
     # until the manifest flips, so they write to their default filenames
     # directly.  REWRITES of live arrays (the sample_rate-change path)
     # must never overwrite the referenced file — mark sign bits at the

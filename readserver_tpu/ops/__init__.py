@@ -1,6 +1,6 @@
 """Device-side query ops: rank / backward search / LF-resolve.
 
-This package is the TPU-native core of the framework — the replacement for
+This package is the device-side core of the framework — the replacement for
 SGA's FM-index classes (``Occurrence``, ``BWTAlgorithms``, the LF walk;
 SURVEY.md §2.1, L2).  All ops are pure functions over a :class:`DeviceIndex`
 pytree, jit-friendly (static shapes, ``lax.scan``/``fori_loop`` control

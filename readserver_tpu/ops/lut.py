@@ -9,9 +9,9 @@ searches.  Prepending char c maps id(w) → (c-1)·4^ℓ + id(w), so level ℓ+1
 is four c-blocks of the extended level-ℓ table, in c order.  Total cost
 ≈ 2.7·4^p ranks, a few seconds on device at p=12.
 
-This is the TPU-shaped replacement for making the first p of k scan steps
-disappear: trade one HBM table (4^p·8 bytes) for p·2·B row gathers per
-batch — the dominant cost of the whole engine (SURVEY.md §3.2).
+It makes the first p of k scan steps disappear: one device table
+(4^p·8 bytes) replaces p·2·B row gathers per batch — the dominant cost of
+the whole engine (SURVEY.md §3.2).
 """
 
 from __future__ import annotations
@@ -61,6 +61,8 @@ def build_prefix_lut(
     slices k·4^ℓ + [a:b), k = c-1."""
     if not (1 <= p <= 15):
         raise ValueError("prefix LUT order must be in [1, 15]")
+    if max_chunk < 1:
+        raise ValueError(f"max_chunk must be >= 1, got {max_chunk}")
     l = index.C[1:5]
     u = index.C[2:6]
     size = 4
@@ -90,9 +92,9 @@ def build_prefix_lut(
 
 def default_lut_order(n: int, max_order: int = 12) -> int:
     """Pick p so the LUT is populated but not wasteful: ~log4(n) - 1,
-    clamped to [4, max_order].  p=12 (134MB LUT) measured fastest at
-    E. coli scale on v5e: 1.90M vs 1.83M (p=11) vs 1.23M (no LUT) 31-mer
-    searches/s at B=262144."""
+    clamped to [4, max_order].  The cap keeps the table small (p=12 is
+    4^12·8 B = 134 MB; each further order is 4x that) while removing the
+    first 12 rank steps of every query."""
     if n <= 0:
         return 4
     logn = int(np.log2(max(n, 2)) / 2)

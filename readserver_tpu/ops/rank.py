@@ -4,9 +4,10 @@
 gather per rank: the row holds ``[checkpoint, plane words...]``, and the
 in-block remainder is a masked popcount over the plane words — the batched
 replacement for SGA's mark-lookup + run scan (SURVEY.md §3.2 "Occ: HOT
-inner loop").  This is the jnp form; ``kernels/pallas_rank.py`` provides
-the hand-fused Pallas variant and both are tested against
-``index/packing.occ_scalar``.
+inner loop").  XLA lowers the row fetch to one gather; a hand-written
+kernel has nothing to fuse inside one rank, and the scan's data
+dependence stops fusion across steps.  Tested against
+``index/packing.occ_scalar`` and the oracle FM-index.
 """
 
 from __future__ import annotations

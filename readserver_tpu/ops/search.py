@@ -10,7 +10,7 @@ bounds, SGA convention).  Here the whole batch advances one character per
 with masking for variable-length queries and already-empty intervals.  Both
 ranks of a step fuse into one ``[2B]`` row gather per step.
 
-Two measured-on-v5e accelerations (rank row-gathers are the entire cost):
+Two accelerations (rank row-gathers are the entire cost):
 
 * **Right-aligned queries + C-array init.** Queries are encoded right-
   aligned, so every query's *last* character sits in column K-1, and the
@@ -230,11 +230,9 @@ def backward_search_pair(
     ``C3`` triples, then ``rank2_rows``/``C2`` pairs, then singles): for a
     k-mer ``s``, ``l' = Ck[s] + occk(s, l)`` lands exactly where k single
     steps would, dividing the dependent-gather chain — the hot path's
-    latency bound on v5e (~14ns per gathered 16B row, flat in table
-    size) — by k.  The k-step FM-index idea; the 4^k planes cost
-    4^k/4 B/sym of HBM, which measured as free for throughput (gather
-    rate is issue-bound, not cache-bound), so tier depth is capped by
-    capacity only (see ``builder.TRIPLE_TIER_MAX_N``).
+    latency bound — by k.  The k-step FM-index idea; the 4^k planes cost
+    4^k/4 B/sym of device memory, so tier depth is capped by capacity
+    (see ``builder.TRIPLE_TIER_MAX_N``).
 
     Restricted to uniform full-width batches (every query length == K,
     which is how the dispatcher pads batches anyway); the engine routes

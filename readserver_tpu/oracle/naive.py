@@ -60,12 +60,24 @@ def encode_windows_2bit(reads_matrix: np.ndarray, k: int) -> np.ndarray:
     nw = L - k + 1
     if nw <= 0:
         return np.zeros((m, 0), dtype=np.uint64)
-    out = np.zeros((m, nw), dtype=np.uint64)
+    # rolling encode, one column per step: window o+1 is window o shifted
+    # down one base with base o+k entering at the top
+    cols = (reads_matrix.T.astype(np.uint64) - np.uint64(1))  # [L, m]
+    out = np.empty((nw, m), dtype=np.uint64)
+    cur = np.zeros(m, dtype=np.uint64)
     for j in range(k):
-        out |= (reads_matrix[:, j : j + nw].astype(np.uint64) - 1) << np.uint64(
-            2 * j
-        )
-    return out
+        cur |= cols[j] << np.uint64(2 * j)
+    out[0] = cur
+    top = np.uint64(2 * (k - 1))
+    for o in range(1, nw):
+        cur = (cur >> np.uint64(2)) | (cols[o + k - 1] << top)
+        out[o] = cur
+    return out.T
+
+
+# reads per chunk in window_multiset_counts: bounds its window buffer to
+# ~40 MB at 100 bp reads
+_CHUNK_ROWS = 1 << 16
 
 
 def window_multiset_counts(
@@ -73,23 +85,31 @@ def window_multiset_counts(
 ) -> np.ndarray:
     """Exact occurrence counts for many query k-mers at once.
 
-    Builds the sorted multiset of ALL 2-bit-packed read windows (one pass +
-    one in-place sort) and answers each query with two binary searches —
-    the bench-scale widening of the oracle-diff idiom (SURVEY.md §4):
-    hundreds of parity queries at chr20 scale cost minutes, not hours.
+    Sorts the (few) 2-bit-packed queries, then streams the read windows
+    in chunks of reads: each window is looked up in the
+    sorted queries by binary search and tallied on a match — the
+    bench-scale widening of the oracle-diff idiom (SURVEY.md §4).  One
+    pass over the reads, no sort of the windows, memory bounded by the
+    chunk.
 
     ``queries``: uint8 [Q, k] base codes.  Returns int64 [Q].
     """
     q = np.asarray(queries)
     k = q.shape[1]
-    win = encode_windows_2bit(reads_matrix, k).ravel()
-    win.sort()  # in-place: no second 8-byte-per-window copy at chr20 scale
     enc = np.zeros(q.shape[0], dtype=np.uint64)
     for j in range(k):
         enc |= (q[:, j].astype(np.uint64) - 1) << np.uint64(2 * j)
-    lo = np.searchsorted(win, enc, side="left")
-    hi = np.searchsorted(win, enc, side="right")
-    return (hi - lo).astype(np.int64)
+    uq, inv = np.unique(enc, return_inverse=True)
+    counts = np.zeros(len(uq), dtype=np.int64)
+    if not len(uq):
+        return counts
+    for a in range(0, reads_matrix.shape[0], _CHUNK_ROWS):
+        win = encode_windows_2bit(reads_matrix[a : a + _CHUNK_ROWS], k).ravel()
+        pos = np.searchsorted(uq, win)
+        np.minimum(pos, len(uq) - 1, out=pos)
+        hit = uq[pos] == win
+        counts += np.bincount(pos[hit], minlength=len(uq))
+    return counts[inv.ravel()]
 
 
 def naive_find_reads(

@@ -4,7 +4,7 @@ The reference scales by splitting the population BWT across backend server
 processes and merging per-shard counts on a TCP front end (SURVEY.md §1 L5,
 §2.4).  Here the same axis — contiguous global BWT position ranges — is
 sharded across the ``'shard'`` mesh axis; every shard computes a masked
-local contribution to each rank and a single ``psum`` over ICI produces the
+local contribution to each rank and a single ``psum`` produces the
 global value.  Query batches stream over the ``'dp'`` axis.  The star
 topology of the reference becomes one SPMD program.
 """

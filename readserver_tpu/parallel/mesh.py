@@ -17,8 +17,10 @@ def make_mesh(
     ``dp`` is the query-throughput axis (the reference's replica
     load-balancing); ``shard`` is the BWT-interval axis (the reference's
     backend split).  Defaults to using every visible device on the shard
-    axis.  On a multi-host pod slice, call ``jax.distributed.initialize()``
-    first and pass ``jax.devices()``; shards then ride ICI within the slice.
+    axis.  The device list is reshaped as given, with no topology
+    assumption: on one machine every card reaches every other at the same
+    rate.  Across hosts, call ``jax.distributed.initialize()`` first and
+    pass ``jax.devices()``.
     """
     devices = devices if devices is not None else jax.devices()
     n = len(devices)

@@ -1,12 +1,18 @@
 """Multi-host process group: jax.distributed wiring (SURVEY.md §2.4).
 
 The reference scales by running backend shard *processes* behind a TCP
-front end; the TPU build's equivalent is one JAX process per host joined
-into a single SPMD program: ``init_multihost`` wires the process group,
+front end; the equivalent here is one JAX process per host joined into a
+single SPMD program: ``init_multihost`` wires the process group,
 ``make_global_mesh`` lays the ('dp', 'shard') mesh so the **shard axis
-stays inside a host** (collective merges ride ICI) and **dp spans hosts**
-(each host ingests its own query stream over DCN), and
-``host_local_queries`` / ``gather_results`` are the ingest/egress hops.
+stays inside a host** (collective merges stay on the host's own links)
+and **dp spans hosts** (each host ingests its own query stream over the
+network), and ``host_local_queries`` / ``gather_results`` are the
+ingest/egress hops.
+
+One process per host: each process opens every card its host shows it.
+Running several processes on one machine needs each one restricted to
+its own cards (``CUDA_VISIBLE_DEVICES``) — otherwise every process would
+claim every card's memory.
 
 Testable without a cluster: N local processes with CPU devices form a real
 process group with real cross-process collectives (tests/test_multihost.py
@@ -26,10 +32,11 @@ def init_multihost(
 ) -> None:
     """Join this process into the group (idempotent per process).
 
-    ``coordinator`` is ``host:port`` of process 0.  On a real pod slice
-    the TPU runtime supplies device locality; on the CPU-simulated rig
-    set ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` per
-    process BEFORE importing jax.  A small ``heartbeat_timeout_s`` makes
+    ``coordinator`` is ``host:port`` of process 0.  Each process uses
+    the devices its host makes visible (one process per host, see the
+    module docstring); on the CPU-simulated rig set
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` per process
+    BEFORE importing jax.  A small ``heartbeat_timeout_s`` makes
     peer-death detection fast enough for CI fault injection.
     """
     import jax
@@ -50,7 +57,7 @@ def make_global_mesh(num_shards: int | None = None):
 
     ``num_shards`` defaults to the per-process device count, which pins
     the whole shard axis inside one host: the per-step psum merges of the
-    interval-sharded search then never cross DCN — the layout SURVEY.md
+    interval-sharded search then never leave the host — the layout SURVEY.md
     §2.4 prescribes.  jax.devices() orders by process, so the reshape
     below puts 'shard' (fast axis) within a process whenever
     ``num_shards`` divides the local device count.

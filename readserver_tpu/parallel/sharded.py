@@ -8,7 +8,7 @@ mesh axis.  For any global position ``i``:
 
 — every shard computes a clamped local rank (out-of-range shards hit their
 checkpoint fast path: clamp yields 0 or the shard total) and one ``psum``
-over ICI yields the global value.  This is the "masked contribution" form
+yields the global value.  This is the "masked contribution" form
 (SURVEY.md §7.6): simplest SPMD, no owner routing, one collective per scan
 step.  Payload tables (dollar_map, read→sample) shard the same way over
 their own dense key ranges.

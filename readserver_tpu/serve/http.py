@@ -217,7 +217,6 @@ class RestServer:
             if pack is not None:
                 # sparse-pack transfer accounting: dense-fallback
                 # frequency quantifies the /samples-vs-/count p95 gap
-                # (VERDICT r4 weak #4)
                 snap["pack"] = dict(pack)
             return _resp("200 OK", snap)
         if path == "/info":

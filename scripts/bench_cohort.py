@@ -52,6 +52,7 @@ def main() -> int:
     import jax
 
     from readserver_tpu import alphabet
+    from readserver_tpu.runtime import card_info
     from readserver_tpu.config import ServeConfig
     from readserver_tpu.corpus import simulate
     from readserver_tpu.index.cohort import build_cohort, load_cohort
@@ -147,9 +148,8 @@ def main() -> int:
     extras = {}
     if hasattr(eng, "_dispatch_merged"):
         # single-batch breakdown: device compute vs host transfer vs
-        # assembly (VERDICT r3 asked where the 2,302 q/s went — answer:
-        # 28 per-partition device->host transfers at ~15 MB/s; merged +
-        # sparse-compacted on device they are one small buffer)
+        # assembly (partitions merge and sparse-compact on device, so the
+        # transfer is one small buffer)
         import jax
 
         t = time.perf_counter()
@@ -164,7 +164,7 @@ def main() -> int:
         eng._assemble_merged(*pend)
         extras["assemble_ms"] = round((time.perf_counter() - t) * 1e3, 1)
 
-        # adversarial rung (VERDICT r3 #9): a batch of the most frequent
+        # adversarial rung: a batch of the most frequent
         # sampled k-mer exercises the exact-attribution sweep at volume;
         # rerun with an undersized max_sweep_rows to pin the cap contract
         # (complete=False, answers never wrong) as a recorded number
@@ -219,6 +219,7 @@ def main() -> int:
         "parity_counts": B,
         "parity_histograms": nchk,
         "device": devs[0].device_kind,
+        "card": card_info(),
         **extras,
     }
     (REPO / "BENCH_cohort.json").write_text(json.dumps(result, indent=2))

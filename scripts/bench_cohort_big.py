@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Config-5 bench AT config-5 scale: 128 samples x 1.03e9 symbols.
 
-The rung VERDICT r4 ranked #1: BASELINE.json:11 pins "multi-sample cohort
+BASELINE.json:11 pins "multi-sample cohort
 (UK10K-style, 100+ samples): population-scale k-mer presence queries with
 per-sample hit attribution", and no prior artifact combined both axes.
 Serves the prebuilt cohort_big artifact (scripts/build_cohort_big.py) on
@@ -41,6 +41,7 @@ def main() -> int:
     import jax
 
     from readserver_tpu import alphabet
+    from readserver_tpu.runtime import card_info
     from readserver_tpu.config import ServeConfig
     from readserver_tpu.index.cohort import load_cohort
     from readserver_tpu.serve.engine import MultiEngine
@@ -209,6 +210,7 @@ def main() -> int:
         "parity_histograms": int(len(hist_idx)),
         "parity_source": "cached",
         "device": jax.devices()[0].device_kind,
+        "card": card_info(),
         **extras,
     }
     (REPO / "BENCH_cohort_big.json").write_text(json.dumps(result, indent=2))

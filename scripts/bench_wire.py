@@ -109,7 +109,10 @@ def main() -> int:
 
     from bench import get_packed, pick_auto_config
 
+    import jax
+
     from readserver_tpu import alphabet
+    from readserver_tpu.runtime import card_info
     from readserver_tpu.config import ServeConfig
     from readserver_tpu.corpus import simulate
     from readserver_tpu.serve import QueryEngine
@@ -156,6 +159,8 @@ def main() -> int:
         "request_kmers": args.request_kmers,
         "clients": args.clients,
         "kmer_len": k,
+        "device": jax.devices()[0].device_kind,
+        "card": card_info(),
     }
     for mode in args.modes.split(","):
         # slice per client, then per request
@@ -196,7 +201,7 @@ def main() -> int:
         served = sum(counts)
         lat = np.array([t for _, t in latencies])
         # startup transients (every client's first request lands while
-        # the queue/relay warms) reported separately from steady state
+        # the queue warms) reported separately from steady state
         steady = np.array([t for seq, t in latencies if seq > 0])
         result[f"{mode}_qps"] = round(served / dt)
         result[f"{mode}_request_p50_ms"] = round(
@@ -214,8 +219,8 @@ def main() -> int:
         pack = dict(getattr(engine, "pack_stats", {}) or {})
         if pack:
             # sparse-pack overflow accounting for THIS mode's run
-            # (VERDICT r4 weak #4: how often does /samples spill to the
-            # dense fallback, and how many bytes actually moved)
+            # (how often does /samples spill to the dense fallback, and
+            # how many bytes actually moved)
             delta = {
                 kk: pack.get(kk, 0) - pack_before.get(kk, 0) for kk in pack
             }

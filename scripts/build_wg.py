@@ -102,7 +102,7 @@ def write_parity_cache(scale: float, shards: int) -> Path:
     + exact counts for EVERY pool entry (sorted window multiset, one sort
     + two binary searches per query).  bench_wg then needs neither the
     22M-read re-simulation nor the multi-minute multiset sort per run
-    (VERDICT r3 #2/#6)."""
+   ."""
     from readserver_tpu import alphabet  # noqa: F401  (env check)
     from readserver_tpu.corpus import simulate
     from readserver_tpu.oracle.naive import window_multiset_counts

@@ -1,6 +1,6 @@
 """BAM ingest (corpus/bam.py): BGZF framing, record round-trip, flag
 semantics, and the CLI build path (SURVEY.md §1 L0 "FASTQ/CRAM in" —
-BAM is the self-contained member of that family; VERDICT r4 missing #2).
+BAM is the self-contained member of that family).
 """
 
 import struct

@@ -217,3 +217,35 @@ def test_serve_config_drop_tiers_profile(packed, tiny_corpus):
     for x, y in zip(eng_a.query_batch(kmers), eng_b.query_batch(kmers)):
         assert x.count == y.count
         assert x.sample_hist == y.sample_hist
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize(
+    "platform,stats,want",
+    [
+        ("cpu", None, None),  # simulated mesh: host RAM, no cap
+        ("gpu", {"bytes_limit": 1000, "bytes_in_use": 7}, 920),
+        ("gpu", None, RuntimeError),  # no limit reported: no guess
+        ("gpu", {"bytes_in_use": 7}, RuntimeError),
+    ],
+)
+def test_device_budget_bytes(monkeypatch, platform, stats, want):
+    from readserver_tpu.index.budget import device_budget_bytes
+
+    monkeypatch.setattr(
+        jax, "local_devices", lambda: [_FakeDevice(platform, stats)]
+    )
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="bytes_limit"):
+            device_budget_bytes()
+    else:
+        assert device_budget_bytes(headroom=0.92) == want

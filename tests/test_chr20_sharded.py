@@ -1,4 +1,4 @@
-"""Production-shape sharded correctness (VERDICT r3 #10, opt-in slow):
+"""Production-shape sharded correctness (opt-in slow):
 the interval-sharded owner-routed query path over the REAL chr20 artifact
 (n = 1.94e9 symbols — per-shard positions near the top of the int32
 range, block counts in the tens of millions) on the virtual CPU mesh.

@@ -327,7 +327,7 @@ def test_compact_cohort_preserves_answers(tiny_corpus, tmp_path):
 
 
 def test_append_inherits_build_config(tiny_corpus, tmp_path):
-    """ADVICE r3 (medium): append with config=None must recover the
+    """Append with config=None must recover the
     cohort's ACTUAL build-time layout (IndexConfig + sample_rate + tier
     set) from shard 0's manifest, not silently rebuild with defaults —
     doc-sharded serving applies shard 0's parameters to every shard."""
@@ -381,7 +381,7 @@ def test_cli_append_rejects_plain_artifact(tiny_corpus, tmp_path, capsys):
 def test_compact_keeps_singletons_and_rewrites_progress(
     tiny_corpus, tmp_path
 ):
-    """ADVICE r3: singleton groups keep their shard dir in place (no
+    """Singleton groups keep their shard dir in place (no
     byte-identical re-save), and progress.jsonl is rewritten to the new
     shard list so a later resumed streaming build can't clobber the
     compacted cohort."""
@@ -599,7 +599,7 @@ def test_hist_tier_truncation_flag_exact(cohort_setup):
 
 
 def test_merged_count_int64_no_wrap(cohort_setup):
-    """ADVICE r4 (medium): cross-partition counts accumulate in int64.
+    """Cross-partition counts accumulate in int64.
 
     Per-partition counts are guaranteed to fit int32 (each partition's
     n < 2^31) but their sum is not; feed the device merge synthetic
@@ -640,7 +640,7 @@ def test_merged_count_int64_no_wrap(cohort_setup):
 
 def test_pack_stats_accounting(cohort_setup, monkeypatch):
     """engine.pack_stats records batches, sparse bytes, and dense-fallback
-    events — the /samples overflow accounting (VERDICT r4 weak #4)."""
+    events — the /samples overflow accounting."""
     from readserver_tpu.serve.engine import MultiEngine
 
     corpus, path = cohort_setup

@@ -113,3 +113,10 @@ def test_lut_chunked_build_bit_identical(setup):
         for chunk in [64, 100, 1 << 10]:
             got = np.asarray(build_prefix_lut(dev, p, max_chunk=chunk))
             assert np.array_equal(ref, got), (p, chunk)
+
+
+@pytest.mark.parametrize("chunk", [0, -4])
+def test_lut_rejects_nonpositive_chunk(setup, chunk):
+    _, _, dev = setup
+    with pytest.raises(ValueError, match="max_chunk"):
+        build_prefix_lut(dev, 4, max_chunk=chunk)

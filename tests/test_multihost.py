@@ -84,7 +84,7 @@ def test_two_process_sharded_parity():
 
 @pytest.mark.slow
 def test_two_process_small_scale_stress():
-    """Beyond-toy 2-process case (VERDICT r2): a ~1.2M-symbol corpus with
+    """Beyond-toy 2-process case: a ~1.2M-symbol corpus with
     owner-routed ranks at a deliberately undersized capacity (forces the
     local overflow while_loop rounds), the direct-resolve tier stripped
     (forces the sampled-LF walk's per-step cross-process collectives),

@@ -95,3 +95,17 @@ def test_search_is_jit_stable(setup):
     l2, u2 = f(dev, codes, lengths)
     assert np.array_equal(np.asarray(l1), np.asarray(l2))
     assert np.array_equal(np.asarray(u1), np.asarray(u2))
+
+
+def test_occ_block_edges(setup):
+    """Ranks at and around rank-block boundaries (where the checkpoint
+    word takes over from the in-block popcount) and at both BWT ends."""
+    _, fm, dev = setup
+    S = dev.block_size
+    probes = [0, 1, S - 1, S, S + 1, 2 * S - 1, 2 * S, dev.n - 1, dev.n]
+    for c in range(5):
+        cs = np.full(len(probes), c, dtype=np.int32)
+        iis = np.array(probes, dtype=np.int32)
+        got = np.asarray(jax.jit(occ)(dev, cs, iis))
+        want = np.array([fm.occ(c, i) for i in probes])
+        assert np.array_equal(got, want), c

@@ -291,7 +291,7 @@ def test_sharded_kstep_collective_accounting(packed, tiny_corpus):
 def test_sharded_resolve_budget_and_walk_exit(packed, fm, tiny_corpus, dp, shards):
     """resolve_budget compaction + walk early-exit return bit-identical
     answers when the budget is not binding, and the compiled walk's psum
-    volume shrinks (the VERDICT 'collective-storming' fix)."""
+    volume shrinks (the 'collective-storming' fix)."""
     from readserver_tpu.parallel.stats import collective_stats
 
     mesh = make_mesh(data_parallel=dp, num_shards=shards)

@@ -1,8 +1,8 @@
 """Artifact upgrade (index/upgrade.py): a tier-set evolution must never
 orphan an artifact — missing tiers are synthesized in place from the base
 arrays (sym4 BWT + LF walk), bit-identical to a from-scratch build, and
-the upgraded artifact serves identically (VERDICT r3 #7: the v4→v5 bump
-silently orphaned the 20 GB chr20 build)."""
+the upgraded artifact serves identically (a format bump must never
+silently orphan a 20 GB chr20 build)."""
 
 import json
 
@@ -175,7 +175,7 @@ def test_upgrade_rate_change_rewrites_all_resolve_tiers(
 def test_rate_change_crash_leaves_artifact_valid(
     full_artifact, tmp_path, monkeypatch
 ):
-    """ADVICE r4 (medium): a crash mid-way through a sample_rate-change
+    """A crash mid-way through a sample_rate-change
     rewrite must leave the ORIGINAL artifact fully intact — rewrites go
     to rate-versioned files flipped via the atomic manifest update, so
     mixed-density resolve tiers are impossible at any crash point."""
